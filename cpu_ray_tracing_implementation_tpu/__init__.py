@@ -1,11 +1,11 @@
-"""TPU-native differentiable path tracer.
+"""Differentiable path tracer in JAX, for NVIDIA GPUs.
 
 A brand-new JAX/XLA/Pallas re-design of the capabilities of the reference C++ CPU
 renderer ``JTtNinjaCode/CPU-Ray-Tracing-Implementation`` (see SURVEY.md): four camera
 models, six material families, MIS light sampling, sphere/quad/triangle/volume
 primitives, BVH acceleration, motion blur, procedural noise and image textures,
 glTF ingestion — restructured as a batched wavefront integrator over
-structure-of-arrays scene tables, sharded over TPU meshes, and differentiable
+structure-of-arrays scene tables, sharded over device meshes, and differentiable
 w.r.t. material / emission / camera parameters.
 
 Import shorthand::

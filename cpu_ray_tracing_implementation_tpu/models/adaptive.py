@@ -8,7 +8,7 @@ first rounds while light edges / glass / shadow penumbrae keep sampling —
 the total sample budget concentrates where the estimator is actually
 noisy.
 
-TPU shape: the device never sees a dynamic shape. Each round the host
+Static shapes: the device never sees a dynamic shape. Each round the host
 compacts the unconverged pixel ids (numpy nonzero), pads them to the next
 power of two (so at most log2(n_pix) distinct shapes ever compile), and
 calls one jitted chunk-accumulator over that id array. Because every

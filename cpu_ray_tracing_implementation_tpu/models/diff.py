@@ -220,12 +220,9 @@ def loss_and_grads(scene, camera, key, target, spp: int,
     docstring) — False differentiates only texture/material/camera.
 
     ``unroll``: (bounce, spp) scan unroll for the differentiated render —
-    defaults to the forward-tuned factors (integrator UNROLL note). The
-    round-2 TPU compiler SIGILL under grad-of-unrolled-scan no longer
-    reproduces (re-checked 2026-08-19, both replay and remat paths);
-    slope-measured on the chip, unroll (8,2) + replay is 11.3 -> 20.5
-    M rays/s fwd+bwd on the bench workload. CRT_UNROLL=1,1 restores the
-    old behavior if a compiler regression resurfaces.
+    defaults to the forward-tuned factors (integrator UNROLL note);
+    CRT_UNROLL=1,1 turns unrolling off if a compiler fails on
+    grad-of-unrolled-scan.
     ``replay`` (STATIC; None = auto): compact-residual intersection
     (ops/replay.py); False forces the remat-everything VJP oracle."""
 

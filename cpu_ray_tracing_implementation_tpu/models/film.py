@@ -7,6 +7,9 @@ emissive pixels >1.0 write bytes >255 into the P3 file; we clamp to [0, 1).
 
 from __future__ import annotations
 
+import struct
+import zlib
+
 import numpy as np
 import jax.numpy as jnp
 
@@ -55,10 +58,27 @@ def write_ppm(path: str, img) -> None:
         f.write("\n")
 
 
-def write_png(path: str, img, tonemap_mode: str | None = None) -> None:
-    from PIL import Image
+def encode_png(data: np.ndarray) -> bytes:
+    """8-bit RGB PNG of a [H,W,3] uint8 array (zlib + struct only)."""
+    h, w, _ = data.shape
 
-    Image.fromarray(to_bytes(img, tonemap_mode)).save(path)
+    def chunk(tag: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+
+    # filter type 0 (None) in front of every scanline
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          np.ascontiguousarray(data, np.uint8).reshape(h, -1)],
+                         axis=1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def write_png(path: str, img, tonemap_mode: str | None = None) -> None:
+    with open(path, "wb") as f:
+        f.write(encode_png(to_bytes(img, tonemap_mode)))
 
 
 def write_exr(path: str, img, half: bool = False) -> None:

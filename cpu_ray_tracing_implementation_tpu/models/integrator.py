@@ -1,6 +1,6 @@
 """Wavefront path-tracing integrator.
 
-TPU re-design of the reference's recursive ``camera::ray_color``
+Batched re-design of the reference's recursive ``camera::ray_color``
 (src/camera.h:193-241): recursion over bounce depth becomes a fixed-length
 ``lax.scan`` carrying (origin, direction, time, throughput, radiance, alive)
 for a whole ray batch; data-dependent material branching becomes masked-lane
@@ -287,13 +287,10 @@ def render_rays(scene, org, dirs, time, key, max_depth: int,
 # (factor 2) — scan semantics (and therefore the sampled streams) are
 # unchanged, but XLA fuses across iterations instead of paying the
 # while-loop per-iteration overhead: slope-measured +22% forward and
-# +30% fwd+bwd on the Cornell bench workload. Round 2 kept the
-# differentiated path at unroll=1 after a TPU compiler SIGILL
-# (TpuPriorityFusionQueue, 2026-08-17) under grad-of-unrolled-scan; that
-# crash no longer reproduces (re-checked 2026-08-19 on both the replay
-# and remat backward paths), so gradients now default to the same
-# factors. Override with CRT_UNROLL="bounces,spp" (CRT_UNROLL=1,1
-# restores the round-2 behavior).
+# +30% fwd+bwd on the Cornell bench workload on the previous accelerator
+# (the factors' re-check on the card is ROADMAP A4). Gradients default to
+# the same factors. Override with CRT_UNROLL="bounces,spp" (CRT_UNROLL=1,1
+# turns unrolling off if a compiler fails on grad-of-unrolled-scan).
 def _default_unroll() -> tuple:
     import os
 
@@ -352,9 +349,9 @@ def scan_batch_pixels(scene) -> int | None:
     """Auto pixel-batch size for the classic scan on this scene (None =
     whole frame at once). Same batch-coupling effect as wavefront_lanes:
     on PER-RAY-routed scenes the select phases / sweep slots run to the
-    worst ray in the batch, so smaller batches early-exit sooner —
-    colonnade scan measured 0.97 -> 0.70 s at 8192 (chip, BASELINE.md
-    round 5). Dense and packet-routed scenes keep the full frame.
+    worst ray in the batch, so smaller batches early-exit sooner (8192
+    was set on the previous accelerator; its re-check on the card is
+    ROADMAP A4). Dense and packet-routed scenes keep the full frame.
     Override: CRT_SCAN_TILE=<n|full>."""
     import os
 
@@ -485,13 +482,12 @@ def _perray_routed(scene) -> bool:
 def wavefront_lanes(scene, L: int) -> int | None:
     """Auto lane-pool size for the wavefront on this scene (None = L).
 
-    Measured round 5 (v5e, BASELINE.md): on PER-RAY-routed scenes the
-    exactness machinery is batch-coupled — every select phase and sweep
-    slot runs until the WORST ray in the pool is satisfied, so a smaller
-    pool early-exits sooner. Colonnade full workload: pool 40000 -> 8192
-    took 4.90 -> 2.81 s (1.74x). Packet-routed scenes want the full pool
-    (coherent tiles amortize shared chunk loads: sphereflake 2.88 ->
-    5.4 s at pool 5000). Pools <= L keep the image BITWISE identical to
+    On PER-RAY-routed scenes the exactness machinery is batch-coupled —
+    every select phase and sweep slot runs until the WORST ray in the pool
+    is satisfied, so a smaller pool early-exits sooner. Packet-routed
+    scenes want the full pool (coherent tiles amortize shared chunk
+    loads). The 8192 pool was set on the previous accelerator; its re-check
+    on the card is ROADMAP A4. Pools <= L keep the image BITWISE identical to
     pool == L: path ids issue in order, so at most one sample of any
     pixel is in flight and per-pixel flushes stay in sample order.
     Override: CRT_WF_LANES=<n|full>."""
@@ -810,12 +806,13 @@ def render_image(scene, camera, key, spp: int | None = None,
     """Full image [H,W,3] (linear radiance, pre-gamma).
 
     The sample loop is a ``lax.scan`` (one full-frame wavefront per sample)
-    — the TPU replacement for the reference's per-pixel sample loop
+    — the batched replacement for the reference's per-pixel sample loop
     (src/camera.h:163-171). spp defaults to camera.spp.
 
     ``unroll`` defaults to the forward-tuned factors (UNROLL note above);
     gradient callers (models/diff.py) pass (1, 1) — pass that yourself if
-    you differentiate through this function on TPU.
+    you differentiate through this function and the compiler fails on
+    grad-of-unrolled-scan.
     """
     spp = camera.spp if spp is None else spp
     unroll = _default_unroll() if unroll is None else unroll

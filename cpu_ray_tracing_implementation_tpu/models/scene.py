@@ -1,6 +1,6 @@
 """Structure-of-arrays scene representation + host-side builder.
 
-TPU re-design of the reference's pointer-graph scene (shared_ptr<hittable>
+Flat-table re-design of the reference's pointer-graph scene (shared_ptr<hittable>
 trees, src/hittable_list.h, src/hittable.h instancing wrappers): every
 primitive/material/texture lives in a flat, padded table addressed by integer
 id, so the whole scene is one JAX pytree that can be jitted over, replicated
@@ -25,13 +25,12 @@ from typing import Sequence
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
 
 from cpu_ray_tracing_implementation_tpu.ops import bvh as bvh_mod
 from cpu_ray_tracing_implementation_tpu.ops import chunked as chunked_mod
 from cpu_ray_tracing_implementation_tpu.ops import noise as noise_ops
-from cpu_ray_tracing_implementation_tpu.ops import pallas_intersect as pk_mod
 from cpu_ray_tracing_implementation_tpu.utils import accel
+from cpu_ray_tracing_implementation_tpu.utils import pytree
 
 # material type codes (src/material.h concrete classes)
 MAT_LAMBERTIAN = 0
@@ -56,7 +55,7 @@ VOL_SPHERE = 1
 VOL_MESH = 2
 
 
-@struct.dataclass
+@pytree.dataclass
 class Spheres:
     c0: jnp.ndarray      # [S,3] center at time 0
     c1: jnp.ndarray      # [S,3] center at time 1 (== c0 for static; motion blur src/sphere.h:25)
@@ -65,7 +64,7 @@ class Spheres:
     active: jnp.ndarray  # [S] bool (False on padding rows)
 
 
-@struct.dataclass
+@pytree.dataclass
 class Quads:
     corner: jnp.ndarray  # [Q,3]
     eu: jnp.ndarray      # [Q,3] edge u
@@ -74,7 +73,7 @@ class Quads:
     active: jnp.ndarray  # [Q] bool
 
 
-@struct.dataclass
+@pytree.dataclass
 class Triangles:
     v0: jnp.ndarray      # [T,3]
     v1: jnp.ndarray      # [T,3]
@@ -83,7 +82,7 @@ class Triangles:
     active: jnp.ndarray  # [T] bool
 
 
-@struct.dataclass
+@pytree.dataclass
 class TriAttrs:
     """Per-vertex triangle attributes for smooth shading / texturing —
     beyond reference parity (it loads glTF NORMAL/TEXCOORD_0 then discards
@@ -100,7 +99,7 @@ class TriAttrs:
     smooth: jnp.ndarray  # [T] bool: interpolate normals (else flat)
 
 
-@struct.dataclass
+@pytree.dataclass
 class Volumes:
     kind: jnp.ndarray    # [V] int32: VOL_BOX | VOL_SPHERE | VOL_MESH
     center: jnp.ndarray  # [V,3]
@@ -124,7 +123,7 @@ class Volumes:
     mesh_active: jnp.ndarray | None = None  # [MT] bool
 
 
-@struct.dataclass
+@pytree.dataclass
 class Materials:
     mtype: jnp.ndarray      # [M] int32
     tex: jnp.ndarray        # [M] int32 texture id (albedo or emission)
@@ -139,7 +138,7 @@ class Materials:
     dispersion: jnp.ndarray = None  # [M]
 
 
-@struct.dataclass
+@pytree.dataclass
 class Textures:
     ttype: jnp.ndarray     # [X] int32
     color0: jnp.ndarray    # [X,3] solid color / checker even
@@ -151,14 +150,14 @@ class Textures:
     tfilter: jnp.ndarray = None
 
 
-@struct.dataclass
+@pytree.dataclass
 class NoiseTables:
     perlin_grad: jnp.ndarray  # [256,3]
     perlin_perm: jnp.ndarray  # [256] int32
     value_grid: jnp.ndarray   # [res,res,res]
 
 
-@struct.dataclass
+@pytree.dataclass
 class Scene:
     spheres: Spheres
     quads: Quads
@@ -173,7 +172,7 @@ class Scene:
     # sampling (the capability the reference stubs with broken math,
     # src/sphere.h:76-81); None = no sphere lights
     sphere_lights: jnp.ndarray | None = None
-    background: int = struct.field(pytree_node=False, default=-1)  # texture id or -1
+    background: int = pytree.static_field(default=-1)  # texture id or -1
     # environment-light importance tables (ops/envlight.py; built when
     # set_background(..., importance_sample=True)): [H,W] per-texel
     # probability + row/col CDFs. None = background found by BSDF sampling
@@ -183,22 +182,22 @@ class Scene:
     env_col_cdf: jnp.ndarray | None = None
     # static feature flags: lets the integrator skip texture/volume branches
     # the scene never uses (shapes are static, so this is trace-time constant)
-    tex_types_used: tuple = struct.field(pytree_node=False, default=())
+    tex_types_used: tuple = pytree.static_field(default=())
     # real (unpadded) row counts per primitive table: (spheres, quads, tris,
     # volumes). Tables pad to >=1 row; a zero count lets the integrator drop
     # that primitive type from the XLA graph entirely.
-    counts: tuple = struct.field(pytree_node=False, default=(-1, -1, -1, -1))
+    counts: tuple = pytree.static_field(default=(-1, -1, -1, -1))
     # static set of material type codes present (like tex_types_used):
     # unused material families never enter the scatter XLA graph
-    mat_types_used: tuple = struct.field(pytree_node=False, default=())
+    mat_types_used: tuple = pytree.static_field(default=())
     # static: any material has a nonzero Cauchy dispersion coefficient —
     # turns on the hero-wavelength spectral path (integrator draws one
     # wavelength per (pixel, sample) path and weights its radiance by the
     # normalized wavelength->RGB response). Off = bitwise the RGB render.
-    has_dispersion: bool = struct.field(pytree_node=False, default=False)
+    has_dispersion: bool = pytree.static_field(default=False)
     # static: any picture texture uses bilinear filtering (keeps the
     # 4-tap gather out of nearest-only scenes' graphs)
-    has_bilinear: bool = struct.field(pytree_node=False, default=False)
+    has_bilinear: bool = pytree.static_field(default=False)
     # chunk-scan acceleration for large tables (ops/chunked.py): primitives
     # in BVH depth-first order, cut into fixed chunks with AABBs. None for
     # small tables (dense single-pass path).
@@ -224,10 +223,10 @@ class Scene:
     # static scene AABB (in the traced, recentered frame) — quantization
     # range for the secondary-ray coherence sort keys (ops/raysort.py).
     # Tuples of 3 floats so they are trace-time constants, not device data.
-    world_lo: tuple | None = struct.field(pytree_node=False, default=None)
-    world_hi: tuple | None = struct.field(pytree_node=False, default=None)
+    world_lo: tuple | None = pytree.static_field(default=None)
+    world_hi: tuple | None = pytree.static_field(default=None)
     # world-space offset folded out of the geometry at build time when the
-    # scene centroid is far from the origin: the MXU-expanded quadratics
+    # scene centroid is far from the origin: the matmul-expanded quadratics
     # (|o|^2 - 2 o.c + |c|^2) cancel catastrophically in f32 beyond ~1e3
     # (ops/intersect.py sphere_ts NOTE). Ray origins are shifted by -offset
     # at render entry; position-based textures add it back. None = identity.
@@ -701,7 +700,7 @@ class SceneBuilder:
             if nodes is not None:
                 sphere_tree = bvh_mod.build_tree(
                     nodes, bvh_mod.flatten_chunk_pack(
-                        pk_mod.pack_sphere_constants(sphere_chunks)), MAX_LEAF)
+                        bvh_mod.pack_sphere_constants(sphere_chunks)), MAX_LEAF)
 
         def planar_chunks(rows):
             corner = np.stack([np.asarray(r[0], f32) for r in rows])
@@ -719,7 +718,7 @@ class SceneBuilder:
             if nodes is not None:
                 tree = bvh_mod.build_tree(
                     nodes, bvh_mod.flatten_chunk_pack(
-                        pk_mod.pack_prim_constants(chunks)), MAX_LEAF)
+                        bvh_mod.pack_prim_constants(chunks)), MAX_LEAF)
             return chunks, tree, order
 
         quad_chunks = quad_tree = None

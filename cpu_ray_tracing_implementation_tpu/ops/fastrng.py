@@ -3,16 +3,16 @@
 The reference draws every random number from one global ``std::rand()``
 (src/utility.h:20) — racy under its thread pool and irreproducible. Round 1
 replaced it with per-lane ``jax.random.fold_in`` + ``uniform`` (threefry):
-deterministic and shard-invariant, but the stage ablation
-(tools/profile_bench.py, BASELINE.md "Roofline") measured raygen+RNG at
-~44% of the whole forward pass — each lane pays a 20-round threefry hash
-per fold plus ~one block per two uniforms.
+deterministic and shard-invariant, but costly: each lane pays a 20-round
+threefry hash per fold plus ~one block per two uniforms, a large share of
+the forward pass on the previous accelerator (its share on the card is not
+measured).
 
 Monte-Carlo pixel sampling does not need a cryptographic stream; it needs a
 counter hash with good avalanche so that adjacent (pixel, sample, bounce,
 slot) counters decorrelate. This module supplies the standard
 graphics-literature answer: a murmur3/xxhash-style 32-bit finalizer chain
-(two multiply-xorshift rounds, ~12 VPU ops per uniform, ~10x cheaper than
+(two multiply-xorshift rounds, ~12 integer ops per uniform, ~10x cheaper than
 threefry) keyed by a 64-bit seed that IS still derived from the session's
 ``jax.random`` key — so the public API keeps jax key semantics and the
 stream stays deterministic, shard-invariant, and replayable.

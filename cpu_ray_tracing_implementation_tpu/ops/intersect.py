@@ -1,6 +1,6 @@
 """Batched ray-primitive intersection over flat scene tables.
 
-TPU re-design of the reference's virtual ``hittable::hit`` dispatch + linear
+Batched re-design of the reference's virtual ``hittable::hit`` dispatch + linear
 ``hittable_list`` scan (src/hittable_list.h:20-31): rays are a [R] batch, each
 primitive type is intersected as one dense [R, N] vectorized test, the
 closest hit is a masked argmin, and shading attributes are computed only for
@@ -10,7 +10,7 @@ by the closest surface hit.
 
 This dense path is the correctness oracle and optimal for small scenes;
 tables above the chunking threshold route through the BVH-ordered chunk scan
-(ops/chunked.py) or the fused Pallas kernels (ops/pallas_intersect.py)
+(ops/chunked.py) or its accelerators (ops/packet.py, ops/perray.py, ops/bvh.py)
 behind the same ``Hit`` interface — selected statically per scene here.
 """
 
@@ -18,18 +18,18 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from cpu_ray_tracing_implementation_tpu.ops import chunked
 from cpu_ray_tracing_implementation_tpu.ops import tables as tbl
 from cpu_ray_tracing_implementation_tpu.ops import vecmath as vm
 from cpu_ray_tracing_implementation_tpu.ops.sampling import PI
+from cpu_ray_tracing_implementation_tpu.utils import pytree
 
 INF = jnp.inf
 BIG = 1e30
 
 
-@struct.dataclass
+@pytree.dataclass
 class Hit:
     valid: jnp.ndarray   # [R] bool
     t: jnp.ndarray       # [R]
@@ -45,46 +45,23 @@ def accel_mode() -> str:
     """Large-table accelerator choice (env CRT_ACCEL): ``auto`` picks per
     table size (see _auto_mode), ``ray`` (per-ray visit lists —
     ops/perray.py), ``packet`` (tile-packet culling), ``bvh`` (per-ray
-    node traversal oracle), ``pallas`` (fused chunk kernel), ``chunked``
-    (pure XLA scan oracle)."""
+    node traversal oracle), ``chunked`` (pure XLA scan oracle)."""
     import os
 
     return os.environ.get("CRT_ACCEL", "auto")
 
 
-# auto: tables with at least this many chunks route to the per-ray accel.
-# Measured (v5e, tools/bench_accel.py): 2015-chunk colonnade 1.9x faster
-# per-ray (tile unions visit 20-60x a single ray's chunks once bounces
-# diverge); 58-chunk sphereflake 2.6x faster on packet (coherent tiles
-# share chunk loads; the per-ray gather re-reads rows per lane).
+# auto: tables with at least this many chunks route to the per-ray accel:
+# on the 2015-chunk colonnade a 2048-ray tile's union visits 20-60x a single
+# ray's chunks once bounces diverge, while the 58-chunk sphereflake's
+# coherent tiles share chunk loads (the per-ray gather re-reads rows per
+# lane). The threshold was set on the previous accelerator; its re-check on
+# the card is ROADMAP A4 (tools/bench_accel.py times both).
 RAY_MIN_CHUNKS = 256
 
 
 def _auto_mode(n_chunks: int) -> str:
     return "ray" if n_chunks >= RAY_MIN_CHUNKS else "packet"
-
-
-def _dense_pallas_ok(tmax) -> bool:
-    """Route a dense (small-scene) table through the fused Pallas kernel on
-    a 1-chunk view (ops/pallas_intersect.py "dense entry"): OPT-IN via
-    CRT_DENSE_PALLAS=1, and only for scalar static tmax (the custom-VJP
-    wrappers treat tmax as non-differentiable static).
-
-    Default OFF (2026-08-19): slope-measured on the chip, the 1-chunk
-    Pallas view is ~4x slower forward and ~9x slower fwd+bwd than the
-    pure-XLA dense path on Cornell-class tables (XLA fuses the [R,18]
-    intersect into the surrounding shading at ~86% of the VPU roofline;
-    the kernel call boundary breaks that fusion). The fused kernels still
-    win where they were built to: chunked large scenes (ops/perray.py +
-    ops/pallas_select.py), where traversal, not fusion, dominates."""
-    import os
-
-    from cpu_ray_tracing_implementation_tpu.ops import pallas_intersect as pk
-
-    if os.environ.get("CRT_DENSE_PALLAS", "0") != "1":
-        return False
-    return (pk.use_pallas() and jnp.ndim(tmax) == 0
-            and not isinstance(tmax, jax.core.Tracer))
 
 
 def _safe_div(num, den, fallback):
@@ -102,7 +79,7 @@ def sphere_ts(org, dirs, time, sph, tmin, tmax):
     """[R,S] hit parameter (inf = miss). Quadratic as in src/sphere.h:40-74,
     with the moving-sphere center lerped by ray time (src/sphere.h:83).
 
-    MXU formulation: every ray-sphere dot product expands into [R,3]@[3,S]
+    Matmul formulation: every ray-sphere dot product expands into [R,3]@[3,S]
     contractions against per-sphere constants — the time-lerped center
     enters linearly (d.c(t) = d.c0 + time * d.(c1-c0)), so motion blur costs
     two extra matmuls instead of materializing an [R,S,3] center tensor.
@@ -190,7 +167,7 @@ def _planar_ts(org, dirs, corner, eu, ev, active, tmin, tmax, triangle: bool):
     triangles by the same plane + edge-coefficient construction, equal to
     Moller-Trumbore's (t, b0, b1) up to fp rounding — src/triangle.h:8-15).
 
-    MXU formulation: the per-ray edge coefficients are scalar triple
+    Matmul formulation: the per-ray edge coefficients are scalar triple
     products, rewritten so every ray-dependent factor is a dot with a
     *per-primitive constant* vector:
 
@@ -199,7 +176,8 @@ def _planar_ts(org, dirs, corner, eu, ev, active, tmin, tmax, triangle: bool):
     with q = org + t*dirs - corner. Each q.X splits into org.X + t*(dirs.X)
     - corner.X, so the whole test is six [R,3]@[3,N] matmuls (org/dirs
     against unorm / ev x w / w x eu) plus [R,N] elementwise — no [R,N,3]
-    intermediates, and the contractions ride the MXU.
+    intermediates (each contraction pins precision="highest": TF32 would
+    keep ~3 digits).
     """
     n = vm.cross(eu, ev)                                # [N,3]
     unorm = vm.normalize(n)
@@ -263,7 +241,7 @@ def quad_shading(org, dirs, qds, idx, t):
 def tri_ts(org, dirs, tri, tmin, tmax):
     """[R,T] triangle hit parameter. Same (t, b0, b1) as the reference's
     Moller-Trumbore (src/triangle.h:8-15,27-40) computed through the shared
-    plane/edge-coefficient MXU path (see _planar_ts)."""
+    plane/edge-coefficient matmul path (see _planar_ts)."""
     return _planar_ts(org, dirs, tri.v0, tri.v1 - tri.v0, tri.v2 - tri.v0,
                       tri.active, tmin, tmax, triangle=True)
 
@@ -327,10 +305,13 @@ def volume_sample(org, dirs, vols, tmin, t_surface, u_vol):
     Returns (t_v [R], vidx [R], valid [R]); ``u_vol`` is [R, V] uniforms, one
     per volume, replacing the reference's shared-state rand() draw.
     """
-    # ray in each volume's object frame: row-vector times object->world matrix
+    # ray in each volume's object frame: row-vector times object->world
+    # matrix; precision pinned like every geometry contraction (TF32 would
+    # keep ~3 digits of the frame transform)
     rel = org[:, None, :] - vols.center[None, :, :]      # [R,V,3]
-    ol = jnp.einsum("rvk,vkl->rvl", rel, vols.rot)       # R^T applied
-    dl = jnp.einsum("rk,vkl->rvl", dirs, vols.rot)
+    ol = jnp.einsum("rvk,vkl->rvl", rel, vols.rot,
+                    precision="highest")                 # R^T applied
+    dl = jnp.einsum("rk,vkl->rvl", dirs, vols.rot, precision="highest")
 
     # entry/exit of the *line* (negative t allowed: the reference probes with
     # interval::universe first, src/volumne.h:21-22)
@@ -392,8 +373,7 @@ def volume_sample(org, dirs, vols, tmin, t_surface, u_vol):
     vhit = span_ok & (hit_dist <= dist_inside)
     t_v = jnp.where(vhit, t1c + hit_dist / dlen, INF)
 
-    # min + argmin as two reductions: take_along_axis lowers to a serialized
-    # per-row gather on TPU (~500x slower than the reduction)
+    # min + argmin as two reductions (no take_along_axis row gather)
     vidx = jnp.argmin(t_v, axis=-1)
     t_best = jnp.min(t_v, axis=-1)
     return t_best, vidx, jnp.isfinite(t_best)
@@ -515,7 +495,7 @@ def _intersect_core(scene, org, dirs, time, tmin, u_vol, tmax=INF,
     R = org.shape[0]
 
     def best(ts):
-        # two reductions, NOT take_along_axis (serialized row-gather on TPU)
+        # two reductions, no take_along_axis row gather
         return jnp.min(ts, axis=-1), jnp.argmin(ts, axis=-1)
 
     inf_t = jnp.full((R,), INF, org.dtype)
@@ -526,7 +506,6 @@ def _intersect_core(scene, org, dirs, time, tmin, u_vol, tmax=INF,
     if scene.sphere_chunks is not None:
         from cpu_ray_tracing_implementation_tpu.ops import bvh as bvh_mod
         from cpu_ray_tracing_implementation_tpu.ops import packet as pkt
-        from cpu_ray_tracing_implementation_tpu.ops import pallas_intersect as pk
 
         mode = accel_mode()
         if mode == "auto":
@@ -544,32 +523,21 @@ def _intersect_core(scene, org, dirs, time, tmin, u_vol, tmax=INF,
             t_s, sph_payload = bvh_mod.sphere_closest_accel(
                 org, dirs, time, scene.sphere_chunks, scene.sphere_tree,
                 tmin, tmax)
-        elif pk.use_pallas() and pk.fits_pallas(scene.sphere_chunks):
-            t_s, sph_payload = pk.sphere_closest_fused(
-                org, dirs, time, scene.sphere_chunks, tmin, tmax)
         else:
             t_s, sph_payload = chunked.sphere_closest(
                 org, dirs, time, scene.sphere_chunks, tmin, tmax=tmax)
     elif n_sph:
-        if _dense_pallas_ok(tmax):
-            from cpu_ray_tracing_implementation_tpu.ops import pallas_intersect as pk
-            t_s, sph_payload = pk.sphere_closest_fused(
-                org, dirs, time, pk.dense_sphere_view(scene.spheres), tmin,
-                tmax)
-        else:
-            t_s, i_s = best(sphere_ts(org, dirs, time, scene.spheres, tmin,
-                                      tmax))
+        t_s, i_s = best(sphere_ts(org, dirs, time, scene.spheres, tmin, tmax))
     else:
         t_s = inf_t
-    def planar_path(chs, tree, tri_flag, needs_pid=False):
+    def planar_path(chs, tree, tri_flag):
         """Accelerator routing for a chunked planar table. Default (auto) is
-        tile-packet culling (ops/packet.py — measured fastest on TPU);
-        CRT_ACCEL selects bvh (per-ray traversal oracle), pallas (fused
-        kernel) or chunked (scan-everything oracle). All share the contract
-        and the chunk-scan backward."""
+        per-ray visit lists for large tables and tile-packet culling for
+        the rest (_auto_mode); CRT_ACCEL selects bvh (per-ray traversal
+        oracle) or chunked (scan-everything oracle). All share the
+        contract and carry the winning primitive id."""
         from cpu_ray_tracing_implementation_tpu.ops import bvh as bvh_mod
         from cpu_ray_tracing_implementation_tpu.ops import packet as pkt
-        from cpu_ray_tracing_implementation_tpu.ops import pallas_intersect as pk
 
         mode = accel_mode()
         if mode == "auto":
@@ -586,8 +554,6 @@ def _intersect_core(scene, org, dirs, time, tmin, u_vol, tmax=INF,
         if mode == "bvh" and tree is not None:
             return bvh_mod.planar_closest_accel(org, dirs, chs, tree, tmin,
                                                 tri_flag, tmax)
-        if pk.use_pallas() and pk.fits_pallas(chs) and not needs_pid:
-            return pk.planar_closest_fused(org, dirs, chs, tmin, tri_flag, tmax)
         return chunked.planar_closest(org, dirs, chs, tmin, triangle=tri_flag,
                                       tmax=tmax)
 
@@ -595,26 +561,13 @@ def _intersect_core(scene, org, dirs, time, tmin, u_vol, tmax=INF,
         t_q, quad_payload = planar_path(scene.quad_chunks, scene.quad_tree,
                                         False)
     elif n_quad:
-        if _dense_pallas_ok(tmax):
-            from cpu_ray_tracing_implementation_tpu.ops import pallas_intersect as pk
-            t_q, quad_payload = pk.planar_closest_fused(
-                org, dirs, pk.dense_quad_view(scene.quads), tmin, False, tmax)
-        else:
-            t_q, i_q = best(quad_ts(org, dirs, scene.quads, tmin, tmax))
+        t_q, i_q = best(quad_ts(org, dirs, scene.quads, tmin, tmax))
     else:
         t_q = inf_t
     if scene.tri_chunks is not None:
-        # pallas kernel carries no primitive id, so per-vertex attribute
-        # scenes route to a pid-carrying path
-        t_t, tri_payload = planar_path(scene.tri_chunks, scene.tri_tree, True,
-                                       needs_pid=scene.tri_attrs is not None)
+        t_t, tri_payload = planar_path(scene.tri_chunks, scene.tri_tree, True)
     elif n_tri:
-        if _dense_pallas_ok(tmax) and scene.tri_attrs is None:
-            from cpu_ray_tracing_implementation_tpu.ops import pallas_intersect as pk
-            t_t, tri_payload = pk.planar_closest_fused(
-                org, dirs, pk.dense_tri_view(scene.tris), tmin, True, tmax)
-        else:
-            t_t, i_t = best(tri_ts(org, dirs, scene.tris, tmin, tmax))
+        t_t, i_t = best(tri_ts(org, dirs, scene.tris, tmin, tmax))
     else:
         t_t = inf_t
 

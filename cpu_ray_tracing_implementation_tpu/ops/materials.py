@@ -1,6 +1,6 @@
 """Material scatter/emission as masked-lane batch functions.
 
-TPU re-design of the reference's virtual material dispatch
+Batched re-design of the reference's virtual material dispatch
 (src/material.h:36-219): every ray evaluates all material families the scene
 contains and selects by type id. The kDetermined / kRandom split of
 ``scatter_record`` (src/material.h:28-34) becomes two precomputed candidate
@@ -133,7 +133,7 @@ def light_pdf(scene, origin: jnp.ndarray, direction: jnp.ndarray) -> jnp.ndarray
     quad (src/quad.h:66-73); spheres: the cone pdf 1/(2 pi (1 - cos_max))
     when the ray hits the sphere (pairing ops/sampling.cone_dir).
 
-    Same scalar-triple-product MXU form as ops.intersect._planar_ts, with a
+    Same scalar-triple-product matmul form as ops.intersect._planar_ts, with a
     finite sentinel for missed planes — an inf t here would leak NaN into
     the gradients of every ray (0 * inf in the backward of masked lanes).
     """

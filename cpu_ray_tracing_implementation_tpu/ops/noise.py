@@ -1,6 +1,6 @@
 """Procedural noise as pure functions of position.
 
-TPU re-design of reference src/noise.h: the C++ classes own mutable tables
+Functional re-design of reference src/noise.h: the C++ classes own mutable tables
 built from ``rand()``; here the tables are plain arrays generated host-side
 from a seed (``make_perlin_tables`` / ``make_value_grid``) and the noise
 functions are pure jnp over [..., 3] points, so they fuse into the shading

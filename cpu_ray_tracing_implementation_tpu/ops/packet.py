@@ -1,13 +1,12 @@
-"""Tile-packet culled closest-hit: the TPU-shaped BVH traversal.
+"""Tile-packet culled closest-hit: BVH traversal shaped for batches.
 
-Why not per-ray node traversal? Measured on a v5e chip (tools/bvh_stats.py):
-XLA row-gathers cost ~18 ms per [160k]-lane traversal step, and lockstep
-executes the MAX visit count over all rays (93) while the MEAN is 6.9 —
-per-ray pointer chasing is the wrong shape for this machine (ops/bvh.py
-keeps that implementation as the oracle / an option). The chunk paths
-(ops/chunked.py, ops/pallas_intersect.py) have the opposite problem: every
-ray tests every chunk, and the [R, C] elementwise work is VPU-bound, so the
-only way to go faster is to visit FEWER (ray, chunk) pairs.
+Why not per-ray node traversal? Lockstep executes the MAX visit count over
+all rays while the mean is far lower (tools/bvh_stats.py counts both), and
+every step is a per-lane row gather (ops/bvh.py keeps that implementation as
+the oracle / an option). The chunk scan (ops/chunked.py) has the opposite
+problem: every ray tests every chunk, and the [R, C] elementwise work is
+compute-bound, so the only way to go faster is to visit FEWER (ray, chunk)
+pairs.
 
 This module restructures the reference's per-ray BVH descent
 (src/bvh_node.h:49-58) as *packet traversal* at tile granularity:
@@ -49,7 +48,6 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from flax import struct  # noqa: F401  (payload dataclasses come from chunked)
 
 from cpu_ray_tracing_implementation_tpu.ops import chunked as ch
 from cpu_ray_tracing_implementation_tpu.ops import tables as tbl

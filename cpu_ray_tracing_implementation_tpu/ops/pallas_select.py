@@ -1,24 +1,38 @@
-"""Pallas TPU kernel: fused per-ray chunk cull + top-V selection.
+"""Pallas kernel (Triton route): fused per-ray chunk cull + top-V select.
 
-The per-ray accelerator (ops/perray.py) spends most of its non-sweep time
-materializing the [R,K] near matrix in HBM and running V (min, argmin,
-mask) rounds over it from HBM (~55 ms/bounce at V=16 on the colonnade).
-This kernel fuses both: each program takes a block of RB rays, computes
-the [RB,K] slab-entry matrix against all K chunk AABBs in VMEM (the AABB
-pack is 8xK — kilobytes), runs the V selection rounds entirely in VMEM,
-and writes only the [RB,V] (ids, nears) lists plus the min of the
-remainder. Nothing of size [R,K] ever touches HBM.
+The XLA form of the per-ray accelerator's select (ops/perray.py
+``_near_matrix`` + ``_select_block``) writes an [R,K] near matrix to device
+memory and reads and rewrites it in each of V (min, argmin, mask) rounds.
+This kernel keeps it out of device memory: each program takes BLOCK_R rays
+and loops over the K chunk AABBs in BLOCK_K tiles. A tile's slab test
+produces [BLOCK_R, BLOCK_K] packed keys in registers, and the tile is merged
+into a running per-ray list of the V+1 smallest keys, also in registers. Only
+the [R,V] (ids, nears) lists and the (V+1)-th key leave the program.
 
-Phase semantics for the exactness loop: selection is ascending in the
-lexicographic key (near, chunk id) — ties broken toward the lower id,
-matching jnp.argmin's first-index tie-break in the XLA path. A phase
-excludes everything at or below its predecessor's last selected key
-(thr, last_id), so consecutive phases partition the full ordered visit
-list without the [R,K] matrix ever being carried between them.
+Keys: one int32 per (ray, chunk) = (f32 near bits, low IDB bits replaced by
+the chunk id). ``near >= tmin > 0``, so the f32 bit pattern orders as a
+positive int32 and (coarsened near, id) is one total order with distinct
+keys. The near a caller gets back is rounded DOWN by the stolen bits
+(relative 2^-(23-IDB)), which is conservative everywhere it is used: the
+sweep's can-this-slot-improve masks and the phase loop's rest-vs-best test
+only ever do MORE work for a smaller near. Chunks whose nears coarsen equal
+are visited in id order rather than exact-near order, so two primitives in
+different chunks with exactly equal hit t can resolve to a different, still
+deterministic, winner than the exact XLA select (tests/test_pallas_select.py).
 
-Forward-only (the per-ray accel wraps everything in a custom VJP whose
-backward replays the forward's winning primitive in O(R) —
-ops/replay.py, since b343828). CPU tests run interpret=True.
+Phases: a phase excludes every key at or below the previous phase's last
+selected key, so consecutive phases partition the full ordered visit list
+without the [R,K] matrix being carried between them. Phase 1 passes 0
+(every real key is > 0); a ray whose list ran out passes ``EXHAUSTED``, which
+excludes everything.
+
+Merge: per tile, while any ray of the block has a tile key below the largest
+key of its list, that key replaces the largest one. Most tiles hold no chunk
+a ray crosses in front of its current list, so most tiles cost one round.
+The list is sorted once at the end.
+
+Forward only: the per-ray accelerator wraps it in a custom VJP whose
+backward replays the winning primitive (ops/replay.py).
 """
 
 from __future__ import annotations
@@ -28,191 +42,181 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-INF = jnp.inf
 BIG = 1e30
+EXHAUSTED = 0x7FFFFFFF      # > every real key; excludes all in a phase
+
+# Tuned on the colonnade's phase shapes (R = 8192, K = 2015, V = 16) on an
+# H100 over block_r {16,32,64} x block_k {32,64,128} x warps {2,4,8}
+# (PERF.md, kernel decisions).
+BLOCK_R = 16
+BLOCK_K = 32
+NUM_WARPS = 4
+NUM_STAGES = 2
 
 
-def _ray_block(K: int) -> int:
-    """Rays per program: bounded so ~3 [RB,K] f32 intermediates fit VMEM."""
-    rb = (3 << 20) // max(K, 1)
-    return max(8, min(512, rb // 8 * 8))
+def _pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
 
 
-def _id_bits(K: int) -> int:
-    """Low key bits holding the chunk id (packed mode)."""
+def id_bits(K: int) -> int:
+    """Low key bits holding the chunk id."""
     return max(11, (K - 1).bit_length())
 
 
 def _kernel(rays_ref, boxes_ref, excl_ref, ids_ref, nears_ref, rest_ref,
-            *, V: int, K: int, K_real: int, tmin: float, packed: bool):
-    RB = rays_ref.shape[0]
-    col = jax.lax.broadcasted_iota(jnp.int32, (RB, K), 1)
+            *, V: int, K_real: int, n_tiles: int, block_k: int, tmin: float):
+    BR = excl_ref.shape[0]
+    VO = ids_ref.shape[1]               # V rounded up to a power of two
+    W = _pow2(V + 1)                    # list width; slots >= V+1 are dead
+    IDB = id_bits(K_real)
+    HMASK = jnp.int32(-(1 << IDB))      # high (near) bits
+    IDMASK = jnp.int32((1 << IDB) - 1)  # low (id) bits
+    MASKV = jnp.int32(EXHAUSTED)
 
-    near = jnp.full((RB, K), -BIG, jnp.float32)
-    far = jnp.full((RB, K), BIG, jnp.float32)
+    o = [rays_ref[a, :][:, None] for a in range(3)]
+    inv = []
     for a in range(3):
-        o = rays_ref[:, a:a + 1]
-        d = rays_ref[:, 3 + a:4 + a]
-        inv = 1.0 / jnp.where(jnp.abs(d) > 1e-20, d, 1e-20)
-        t0 = (boxes_ref[a:a + 1, :] - o) * inv
-        t1 = (boxes_ref[3 + a:4 + a, :] - o) * inv
-        near = jnp.maximum(near, jnp.minimum(t0, t1))
-        far = jnp.minimum(far, jnp.maximum(t0, t1))
-    cap = rays_ref[:, 6:7]
-    # col < K_real: lane-padding columns must never cull in (a min/max slab
-    # test sees an "inverted" box as an infinite one)
-    ok = (near <= far) & (far >= tmin) & (near <= cap) & (col < K_real)
-    nearm = jnp.where(ok, jnp.maximum(near, tmin), INF)
+        d = rays_ref[3 + a, :][:, None]
+        inv.append(1.0 / jnp.where(jnp.abs(d) > 1e-20, d, 1e-20))
+    cap = rays_ref[6, :][:, None]
+    excl = excl_ref[...][:, None]
 
-    thr = excl_ref[:, 0:1]
-    lid = excl_ref[:, 1:2].astype(jnp.int32)
+    slot = jax.lax.broadcasted_iota(jnp.int32, (BR, W), 1)
+    # live slots start at distinct sentinels above every real key (so the
+    # largest one is unique), dead slots at -1 (never the largest)
+    lst0 = jnp.where(slot < V + 1, MASKV - 1 - slot, jnp.int32(-1))
 
-    if packed:
-        # ---- packed-key selection: one int32 key = (near bits | id) ----
-        # nearm >= tmin > 0, so its f32 bit pattern orders as a POSITIVE
-        # int32; stealing the low IDB mantissa bits for the chunk id makes
-        # (coarsened near, id) one total order — each selection round is
-        # min + mask (3 vector ops/element) instead of the exact path's 6,
-        # and the phase exclusion is a single compare. The near the caller
-        # gets back is rounded DOWN by the stolen bits (rel 2^-(23-IDB)),
-        # which is CONSERVATIVE everywhere it is used: the sweep's
-        # can-this-slot-improve masks and the phase loop's rest-vs-best
-        # test only ever do MORE work for a smaller near, never less, and
-        # the final (t, pid) is decided by exact geometry in the sweep —
-        # the phase-loop result is identical to the exact mode's UP TO
-        # EXACT-t TIES (tests/test_pallas_select.py): chunks whose nears
-        # coarsen equal are visited in id order rather than exact-near
-        # order, so two primitives in DIFFERENT chunks with exactly equal
-        # hit t (shared edges/vertices in structured scenes) can resolve
-        # to a different — still deterministic — winning pid/normal/mat.
-        IDB = _id_bits(K)
-        HMASK = jnp.int32(-(1 << IDB))           # high (near) bits
-        MASKV = jnp.int32(0x7FFFFFFF)            # > every real key
+    def tile(k, lst):
+        start = k * block_k
+        col = start + jax.lax.broadcasted_iota(jnp.int32, (BR, block_k), 1)
+        near = jnp.full((BR, block_k), -BIG, jnp.float32)
+        far = jnp.full((BR, block_k), BIG, jnp.float32)
+        for a in range(3):
+            lo = boxes_ref[a, pl.ds(start, block_k)][None, :]
+            hi = boxes_ref[3 + a, pl.ds(start, block_k)][None, :]
+            t0 = (lo - o[a]) * inv[a]
+            t1 = (hi - o[a]) * inv[a]
+            near = jnp.maximum(near, jnp.minimum(t0, t1))
+            far = jnp.minimum(far, jnp.maximum(t0, t1))
+        ok = (near <= far) & (far >= tmin) & (near <= cap)
+        nearm = jnp.where(ok, jnp.maximum(near, tmin), jnp.inf)
         key = (jax.lax.bitcast_convert_type(nearm, jnp.int32) & HMASK) | col
+        # padding chunks and everything earlier phases took are excluded
+        key = jnp.where((key <= excl) | (col >= K_real), MASKV, key)
 
-        # previous phase's last selected key; thr < 0 = phase 1 (exclude
-        # nothing: every real key is > 0 because near >= tmin > 0); NaN
-        # thr = the ray's list was exhausted in an earlier phase (its
-        # last slots were MASKV selections) -> exclude EVERYTHING, or the
-        # phase loop would re-select visited chunks forever
-        thr_bits = (jax.lax.bitcast_convert_type(
-            jnp.maximum(thr, 0.0), jnp.int32) & HMASK) | jnp.maximum(lid, 0)
-        excl_key = jnp.where(thr >= 0.0, thr_bits,
-                             jnp.where(jnp.isnan(thr), MASKV, jnp.int32(0)))
-        key = jnp.where(key <= excl_key, MASKV, key)
+        def cond(st):
+            key, lst = st
+            m = jnp.min(key, axis=1)
+            mx = jnp.max(lst, axis=1)
+            return jnp.max((m < mx).astype(jnp.int32)) > 0
 
-        for v in range(V):
-            m = jnp.min(key, axis=1, keepdims=True)             # [RB,1]
-            ids_ref[:, v:v + 1] = m & ~HMASK
-            nears_ref[:, v:v + 1] = jax.lax.bitcast_convert_type(
-                m & HMASK, jnp.float32)
-            key = jnp.where(key == m, MASKV, key)
+        def body(st):
+            key, lst = st
+            m = jnp.min(key, axis=1)[:, None]
+            mx = jnp.max(lst, axis=1)[:, None]
+            enter = m < mx
+            lst = jnp.where(enter & (lst == mx), m, lst)
+            key = jnp.where(enter & (key == m), MASKV, key)
+            return key, lst
 
-        rest_ref[:, 0:1] = jax.lax.bitcast_convert_type(
-            jnp.min(key, axis=1, keepdims=True) & HMASK, jnp.float32)
-        return
+        return jax.lax.while_loop(cond, body, (key, lst))[1]
 
-    # ---- exact (near, id) lexicographic selection ----
-    # exclude keys at or below the previous phase's last selected (thr, id)
-    visited = (nearm < thr) | ((nearm == thr) & (col <= lid))
-    nearm = jnp.where(visited, INF, nearm)
+    lst = jax.lax.fori_loop(0, n_tiles, tile, lst0)
 
-    # static unroll: Mosaic cannot prove a dynamic lane offset store is
-    # tile-aligned (pl.ds(v, 1) on the minor dim fails to compile), and V
-    # is small and static anyway
+    # sort the V+1 live slots ascending; sentinels read as EXHAUSTED
+    lst = jnp.where((slot < V + 1) & (lst < MASKV - W), lst, MASKV)
+    out = jnp.zeros((BR, VO), jnp.int32)
+    vcol = jax.lax.broadcasted_iota(jnp.int32, (BR, VO), 1)
     for v in range(V):
-        m = jnp.min(nearm, axis=1, keepdims=True)               # [RB,1]
-        idx = jnp.min(jnp.where(nearm == m, col, K), axis=1,
-                      keepdims=True)                            # first min
-        ids_ref[:, v:v + 1] = idx
-        nears_ref[:, v:v + 1] = m
-        nearm = jnp.where(col == idx, INF, nearm)
-
-    rest_ref[:, 0:1] = jnp.min(nearm, axis=1, keepdims=True)
+        m = jnp.min(lst, axis=1)[:, None]
+        out = jnp.where(vcol == v, m, out)
+        lst = jnp.where(lst == m, MASKV, lst)
+    # EXHAUSTED slots repeat: after the first is taken, min stays MASKV
+    rest = jnp.min(lst, axis=1)
+    ids_ref[...] = out & IDMASK
+    nears_ref[...] = jax.lax.bitcast_convert_type(out & HMASK, jnp.float32)
+    rest_ref[...] = jax.lax.bitcast_convert_type(rest & HMASK, jnp.float32)
 
 
 @functools.partial(jax.jit,
                    static_argnames=("V", "K_real", "tmin", "interpret",
-                                    "packed"))
+                                    "block_r", "block_k"))
 def cull_select(rays, boxes, excl, V: int, K_real: int, tmin: float,
-                interpret: bool = False, packed: bool = True):
+                interpret: bool = False, block_r: int = BLOCK_R,
+                block_k: int = BLOCK_K):
     """(ids [R,V] int32, nears [R,V] f32 ascending, rest [R] f32).
 
-    ``rays``: [R, 8] (ox oy oz dx dy dz cap pad), R a multiple of the ray
-    block; ``boxes``: [8, K] (lox loy loz hix hiy hiz **): K a multiple of
-    128, padded chunks with an inverted box (+BIG/-BIG); ``excl``: [R, 2]
-    (near threshold f32, last id as f32) — pass (-BIG, -1) for phase 1.
+    ``rays``: [8, R] (ox oy oz dx dy dz cap pad), R a multiple of
+    ``block_r`` (pad_rays); ``boxes``: [8, Kp] (lox loy loz hix hiy hiz **)
+    from pack_boxes, Kp a multiple of ``block_k``; ``excl``: [R] int32, the
+    previous phase's last key (0 for phase 1, see last_key).
 
-    ``packed`` (default): packed-key selection rounds — nears come back
-    rounded DOWN by the id bits (rel 2^-(23-IDB), conservative; NaN
-    instead of +inf for exhausted slots), ids/phase partition unchanged.
-    ``packed=False`` is the exact (near, id) reference path.
-
-    PRECONDITION for packed mode: ``tmin > 0``. The key order relies on
-    every real near's f32 bit pattern being a positive int32; with
-    tmin == 0 a ray starting inside chunk 0's AABB gets near == 0, whose
-    coarsened key (0) would be swallowed by the phase-1 exclusion
-    (key <= excl_key == 0) and real geometry skipped (ADVICE r04).
-    Callers always pass the positive T_MIN literal; a non-positive tmin
-    falls back to the exact path, which has no such assumption.
+    nears come back rounded DOWN by the id bits (NaN for exhausted slots);
+    ``rest`` is the (V+1)-th key's near. Requires ``tmin > 0``: with
+    tmin == 0 a ray starting inside chunk 0's AABB gets key 0, which the
+    phase-1 exclusion would swallow. Callers with ``tmin <= 0`` use the XLA
+    select (ops/perray.py).
     """
     if tmin <= 0.0:
-        packed = False
-    R = rays.shape[0]
-    K = boxes.shape[1]
-    RB = _ray_block(K)
-    assert R % RB == 0, (R, RB)
-    if jax.default_backend() != "tpu":
-        interpret = True  # CPU tests run the interpreter
-    grid = (R // RB,)
-    kern = functools.partial(_kernel, V=V, K=K, K_real=K_real, tmin=tmin,
-                             packed=packed)
-    return pl.pallas_call(
+        raise ValueError(f"cull_select needs tmin > 0, got {tmin}")
+    R = rays.shape[1]
+    Kp = boxes.shape[1]
+    assert R % block_r == 0 and Kp % block_k == 0, (R, block_r, Kp, block_k)
+    VO = _pow2(V)
+    kern = functools.partial(_kernel, V=V, K_real=K_real,
+                             n_tiles=Kp // block_k, block_k=block_k,
+                             tmin=tmin)
+    ids, nears, rest = pl.pallas_call(
         kern,
-        grid=grid,
+        grid=(R // block_r,),
         in_specs=[
-            pl.BlockSpec((RB, 8), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, K), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((RB, 2), lambda i: (i, 0), memory_space=pltpu.VMEM),
+            pl.BlockSpec((8, block_r), lambda i: (0, i)),
+            pl.BlockSpec((8, Kp), lambda i: (0, 0)),
+            pl.BlockSpec((block_r,), lambda i: (i,)),
         ],
         out_specs=[
-            pl.BlockSpec((RB, V), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((RB, V), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((RB, 1), lambda i: (i, 0), memory_space=pltpu.VMEM),
+            pl.BlockSpec((block_r, VO), lambda i: (i, 0)),
+            pl.BlockSpec((block_r, VO), lambda i: (i, 0)),
+            pl.BlockSpec((block_r,), lambda i: (i,)),
         ],
         out_shape=[
-            jax.ShapeDtypeStruct((R, V), jnp.int32),
-            jax.ShapeDtypeStruct((R, V), jnp.float32),
-            jax.ShapeDtypeStruct((R, 1), jnp.float32),
+            jax.ShapeDtypeStruct((R, VO), jnp.int32),
+            jax.ShapeDtypeStruct((R, VO), jnp.float32),
+            jax.ShapeDtypeStruct((R,), jnp.float32),
         ],
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
+                                           num_stages=NUM_STAGES),
         interpret=interpret,
+        name="cull_select",
     )(rays, boxes, excl)
+    return ids[:, :V], nears[:, :V], rest
 
 
-def pack_rays(org, dirs, cap):
-    """[R, 8] ray pack (pad to the block multiple with pad_rays)."""
+def last_key(ids, nears):
+    """[R] int32 exclusion key of each ray's last selected slot: the packed
+    key itself (nears carry only the high bits, ids the low ones)."""
+    return (jax.lax.bitcast_convert_type(nears[:, -1], jnp.int32)
+            | ids[:, -1])
+
+
+def pack_rays(org, dirs, cap, block_r: int = BLOCK_R):
+    """([8, Rp] ray pack, Rp): rows ox oy oz dx dy dz cap 0, rays padded
+    with zeros to a multiple of ``block_r``."""
     R = org.shape[0]
-    return jnp.concatenate(
-        [org, dirs, cap[:, None], jnp.zeros((R, 1), org.dtype)], axis=1)
+    Rp = -(-R // block_r) * block_r
+    pack = jnp.concatenate(
+        [org.T, dirs.T, cap[None, :], jnp.zeros((1, R), org.dtype)], axis=0)
+    return jnp.pad(pack, ((0, 0), (0, Rp - R))), Rp
 
 
-def pad_rays(pack, K: int):
-    R = pack.shape[0]
-    RB = _ray_block(K)
-    Rp = -(-R // RB) * RB
-    if Rp != R:
-        fill = jnp.zeros((Rp - R, pack.shape[1]), pack.dtype)
-        pack = jnp.concatenate([pack, fill], axis=0)
-    return pack, Rp
-
-
-def pack_boxes(lo, hi):
-    """[8, Kpad] AABB pack, chunks padded to a lane multiple with inverted
-    boxes so they never cull in."""
+def pack_boxes(lo, hi, block_k: int = BLOCK_K):
+    """[8, Kp] AABB pack, chunks padded to a multiple of ``block_k`` with
+    inverted boxes (the kernel also excludes them by id)."""
     K = lo.shape[0]
-    Kp = -(-K // 128) * 128
+    Kp = -(-K // block_k) * block_k
     pack = jnp.full((8, Kp), BIG, jnp.float32)
     pack = pack.at[0:3, :K].set(lo.T)
     pack = pack.at[3:6, :K].set(hi.T)

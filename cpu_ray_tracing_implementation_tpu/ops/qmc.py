@@ -16,7 +16,7 @@ sampler; Burley, "Practical Hash-based Owen Scrambling", JCGT 2020):
   (pixel id, sample index, bounce, slot) — the same contract that makes
   sharded/checkpointed/wavefront renders agree (ops/fastrng.py).
 
-TPU shape: everything is u32 elementwise VPU work. The Sobol second
+Shape: everything is u32 elementwise work. The Sobol second
 dimension is a 32-term XOR reduction over direction vectors; the Owen
 scramble is a Laine-Karras-style multiply-xorshift chain applied in
 bit-reversed space (each output bit depends only on its own and higher

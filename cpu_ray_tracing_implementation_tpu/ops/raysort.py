@@ -20,8 +20,8 @@ within the region, then finely by position — each TILE then covers a small
 frustum and the per-tile chunk cull bites again.
 
 Everything rides ``lax.sort`` with the ray payload as extra operands
-(multi-operand sort keeps lanes together WITHOUT row gathers, which XLA
-serializes on TPU — see ops/bvh.py's measured-gather note); a carried iota
+(multi-operand sort keeps lanes together WITHOUT per-lane row gathers);
+a carried iota
 is re-sorted afterwards to restore the caller's lane order, so sorting is
 invisible to the integrator (and differentiable: ``lax.sort`` permutes
 tangents with primals).

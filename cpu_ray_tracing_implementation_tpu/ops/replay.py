@@ -25,7 +25,7 @@ differentiates the O(R) replay instead of the O(R*N) sweep.
 Gradient semantics are unchanged: min/argmin already route gradients to
 the winning primitive only — replaying the winner computes the same
 derivative. Values can differ from the dense path in ulps (the replay
-quadratic uses the direct |o-c|^2 form rather than the dense path's MXU
+quadratic uses the direct |o-c|^2 form rather than the dense path's matmul
 expansion), so this is OPT-IN for gradient paths (models/diff.py); the
 default forward render is untouched and stays bitwise golden-pinned.
 """
@@ -103,7 +103,7 @@ def winner_pack(scene, org, dirs, time, tmin, u_vol, tmax=INF) -> jnp.ndarray:
 def _sphere_t_one(org, dirs, time, sph, idx, tmin, tmax):
     """[R] t of ray r against sphere idx[r] — the src/sphere.h:40-74
     quadratic with the time-lerped center, in the direct |o-c|^2 form
-    (numerically tighter than the dense MXU expansion; ulp-level value
+    (numerically tighter than the dense matmul expansion; ulp-level value
     differences from the dense path are expected and fine on the grad
     path)."""
     n = sph.c0.shape[0]
@@ -159,8 +159,8 @@ def _volume_t_one(org, dirs, vols, idx, u_vol, tmin):
     rot = tbl.take_rows(vols.rot.reshape(nv, 9), idx, oh).reshape(-1, 3, 3)
 
     rel = org - center
-    ol = jnp.einsum("rk,rkl->rl", rel, rot)
-    dl = jnp.einsum("rk,rkl->rl", dirs, rot)
+    ol = jnp.einsum("rk,rkl->rl", rel, rot, precision="highest")
+    dl = jnp.einsum("rk,rkl->rl", dirs, rot, precision="highest")
 
     ok = jnp.abs(dl) > 1e-12
     dl_safe = jnp.where(ok, dl, 1.0)
@@ -181,7 +181,7 @@ def _volume_t_one(org, dirs, vols, idx, u_vol, tmin):
 
     t1 = jnp.where(kind == 0, t1_box, t1_sph)
     t1c = jnp.maximum(t1, tmin)
-    # u_vol[r, idx[r]] without take_along_axis (serialized row-gather on TPU)
+    # u_vol[r, idx[r]] without a take_along_axis row gather
     V = u_vol.shape[1]
     u_w = jnp.sum(u_vol * jax.nn.one_hot(idx, V, dtype=u_vol.dtype), axis=-1)
     # floor must stay NORMAL in f32: XLA flushes subnormals (e.g. 1e-38,

@@ -11,7 +11,7 @@ a standalone, fully-tested utility layer: a spectral batch is just an
 [..., NUM_BINS] array, so the machinery composes with the wavefront
 integrator whenever a spectral material is added.
 
-TPU redesign notes: the reference's per-wavelength branching becomes a
+Redesign notes: the reference's per-wavelength branching becomes a
 precomputed [NUM_BINS, 3] RGB basis (built once, host-side); spectrumToRGB is
 then one matmul. Everything is differentiable w.r.t. the SPD values.
 """

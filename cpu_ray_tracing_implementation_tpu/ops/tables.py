@@ -1,11 +1,11 @@
-"""Table-row lookup tuned for TPU.
+"""Table-row lookup by one-hot contraction.
 
-``table[idx]`` with a per-ray computed index lowers to a serialized row
-gather on TPU (~2 ms per [360k,3] lookup — measured; see the kCustom gather
-fusions in the HLO). For the small scene tables this framework uses
-(materials, textures, per-type primitive params), a one-hot contraction is
-~100x faster: build the [R,N] comparison mask once and contract it against
-the table on the MXU/VPU.
+``table[idx]`` with a per-ray computed index is a per-lane row gather. For
+the small scene tables this framework uses (materials, textures, per-type
+primitive params) it is replaced by a one-hot contraction: build the [R,N]
+comparison mask once and contract it against the table. The rule was set
+by a measurement on the previous accelerator; its re-check on the card is
+ROADMAP A4.
 
 Large tables (noise permutation grids, image texels) keep the native gather:
 the [R,N] one-hot would not fit in memory.
@@ -32,8 +32,9 @@ def take_rows(table: jnp.ndarray, idx: jnp.ndarray, oh: jnp.ndarray | None = Non
         return table[idx]
     if oh is None:
         oh = onehot(idx, n)
-    # precision="highest": TPU matmuls default to bf16 operand rounding,
-    # which would corrupt table values (geometry coordinates, material params)
+    # precision="highest": a default-precision f32 matmul may round its
+    # operands (TF32 on the GPU), which would corrupt table values (geometry
+    # coordinates, material params)
     mm = lambda a, b: jnp.matmul(a, b, precision="highest")
     if jnp.issubdtype(table.dtype, jnp.integer) or table.dtype == jnp.bool_:
         t = table.astype(jnp.float32)

@@ -1,6 +1,6 @@
 """Core 3-vector math on [..., 3] arrays.
 
-TPU-native replacement for the reference's scalar ``vec3``/``onb`` types
+Batched replacement for the reference's scalar ``vec3``/``onb`` types
 (reference: src/vec3.h, src/onb.h, src/utility.h:70-87): everything is a pure
 function over batched float32 arrays so XLA can fuse it into the surrounding
 integrator. No classes, no scalars.

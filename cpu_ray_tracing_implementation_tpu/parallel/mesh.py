@@ -1,10 +1,10 @@
 """Multi-chip rendering: shard_map over a jax.sharding.Mesh.
 
-TPU-native replacement for the reference's row-parallel thread fan-out
+Device-mesh replacement for the reference's row-parallel thread fan-out
 (reference: src/camera.h:158 ``std::for_each(std::execution::par_unseq)``
 over row indices): pixels shard across the ``chips`` mesh axis, the scene
 tables replicate, per-device wavefronts render independently, and the final
-image assembles through the jit output sharding (XLA all_gather over ICI).
+image assembles through the jit output sharding (an XLA all_gather).
 Sample-axis parallelism (`render_image_spp_sharded`) instead splits spp
 across chips and `psum`s partial radiance — the analog of the reference
 accumulating samples serially per pixel (src/camera.h:165-168).
@@ -204,7 +204,7 @@ def accumulate_wavefront_sharded(scene, camera, key, sample_offset,
 
 def render_image_spp_sharded(scene, camera, key, mesh: Mesh, spp: int | None = None):
     """Full image; the *sample* axis sharded: each chip renders spp/n_dev
-    samples of every pixel and partial radiance is psum-reduced over ICI."""
+    samples of every pixel and partial radiance is psum-reduced."""
     spp = camera.spp if spp is None else spp
     n_dev = mesh.devices.size
     spp_padded = _pad_to(spp, n_dev)
@@ -248,7 +248,7 @@ def render_image_sharded_2d(scene, camera, key, mesh: Mesh,
                             spp: int | None = None):
     """Full image on a 2-D (tile, samp) mesh: pixels shard over ``tile``,
     the sample range over ``samp``; per-device partial radiance psum-reduces
-    over the ``samp`` axis only (ICI), and the pixel axis assembles through
+    over the ``samp`` axis only, and the pixel axis assembles through
     the output sharding. Identical estimator and per-(pixel, sample) RNG
     streams as the single-chip render — only the float summation order of
     the sample axis differs (allclose, not bitwise).
@@ -300,9 +300,9 @@ def render_loss_and_grad_sharded(scene, camera, key, target, mesh: Mesh,
     ``diff.scene_params`` exposes (albedo/emission textures, metal fuzz,
     dielectric IOR, gloss smoothness/probability, dispersion when live)
     plus ``diff.camera_params`` (position, look-at, fov, focus geometry) —
-    pixels sharded over the mesh, gradients psum-all-reduced over ICI.
+    pixels sharded over the mesh, gradients psum-all-reduced.
 
-    This is the "training step" of the differentiable renderer: the TPU
+    This is the "training step" of the differentiable renderer: the
     equivalent of a DP gradient step, with the scene+camera parameters as
     the model. Interchangeable with the single-chip ``diff.loss_and_grads``
     (same loss convention, same param pytrees; round 2 optimized only

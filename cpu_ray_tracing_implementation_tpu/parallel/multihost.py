@@ -3,7 +3,7 @@
 The reference is single-process (SURVEY.md §2.4); here a pod slice is the
 scale-out story: `jax.distributed.initialize` brings every host's chips into
 one global mesh, the scene replicates, pixels shard globally, and the final
-image assembles through jit output sharding (all_gather over ICI within a
+image assembles through jit output sharding (all_gather within a
 slice, DCN across hosts — XLA inserts the collectives; nothing hand-rolled).
 
 Single-host multi-chip needs none of this — `parallel.mesh` alone suffices.
@@ -20,8 +20,9 @@ from cpu_ray_tracing_implementation_tpu.parallel import mesh as pm
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> None:
-    """Join the pod-slice job. On TPU pods all arguments are auto-detected
-    from the environment; pass them explicitly elsewhere."""
+    """Join the multi-process job. Where no cluster environment announces
+    the job (a plain GPU host), pass all three arguments: the coordinator
+    as ``localhost:<port>`` (any free port) on one host."""
     kwargs = {}
     if coordinator_address is not None:
         kwargs = dict(coordinator_address=coordinator_address,

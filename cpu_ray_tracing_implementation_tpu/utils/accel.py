@@ -1,31 +1,57 @@
 """Host-side acceleration-structure building (native C++ with numpy fallback).
 
 The native library (native/bvh_builder.cc) builds a binned-SAH BVH — the
-TPU framework's counterpart of the reference's C++ builder (reference
+path tracer's counterpart of the reference's C++ builder (reference
 src/bvh_node.h:18-47, which median-splits on a hard-coded x axis;
 SURVEY.md appendix item 4). Its outputs serve two consumers:
 
- - the chunked TPU intersector (ops/chunked.py) uses the depth-first
+ - the chunked intersector (ops/chunked.py) uses the depth-first
    primitive ORDER: BVH leaf order is spatially coherent, so fixed-size
    primitive chunks get tight AABBs and whole-batch chunk culls actually fire;
  - the flattened NODE array is available for traversal kernels.
 
-The .so is compiled on demand with g++ (cached next to the source); if no
-compiler is available, a numpy Morton-order fallback provides the same
-interface (slightly looser chunk bounds, identical rendering results).
+The .so is compiled on demand with g++ into native/build/, under a name keyed
+by the source's SHA-256; if no compiler is available, a numpy Morton-order
+fallback provides the same interface (slightly looser chunk bounds, identical
+rendering results).
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 
 import numpy as np
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
+_SRC = os.path.join(_NATIVE_DIR, "bvh_builder.cc")
+_BUILD_DIR = os.path.join(_NATIVE_DIR, "build")
 _LIB = None
 _LIB_TRIED = False
+
+
+def lib_path(src: str = _SRC, build_dir: str = _BUILD_DIR) -> str:
+    """Library path keyed by the SHA-256 of the source: a library built from
+    any other source, or on another checkout's copy, is never loaded."""
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(build_dir, f"libbvh-{digest}.so")
+
+
+def build_native(src: str = _SRC, build_dir: str = _BUILD_DIR) -> str:
+    """Compile the builder (portable flags, no -march=native) unless the
+    library for this exact source exists; returns its path."""
+    so_path = lib_path(src, build_dir)
+    if not os.path.exists(so_path):
+        os.makedirs(build_dir, exist_ok=True)
+        tmp = f"{so_path}.{os.getpid()}.tmp"
+        subprocess.run(["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
+                        "-o", tmp, src],
+                       check=True, capture_output=True, timeout=120)
+        os.replace(tmp, so_path)   # atomic: concurrent builders race safely
+    return so_path
 
 
 def _load_native():
@@ -33,16 +59,8 @@ def _load_native():
     if _LIB_TRIED:
         return _LIB
     _LIB_TRIED = True
-    so_path = os.path.join(_NATIVE_DIR, "libbvh.so")
-    src = os.path.join(_NATIVE_DIR, "bvh_builder.cc")
     try:
-        if not os.path.exists(so_path) or (
-                os.path.exists(src) and os.path.getmtime(src) > os.path.getmtime(so_path)):
-            subprocess.run(
-                ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-                 "-o", so_path, src],
-                check=True, capture_output=True, timeout=120)
-        lib = ctypes.CDLL(so_path)
+        lib = ctypes.CDLL(build_native())
         lib.bvh_build.restype = ctypes.c_int32
         lib.bvh_build.argtypes = [
             ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
@@ -53,6 +71,11 @@ def _load_native():
         print(f"[accel] native builder unavailable ({e}); using numpy fallback")
         _LIB = None
     return _LIB
+
+
+def native_available() -> bool:
+    """True when BVH builds use the native SAH builder, not the fallback."""
+    return _load_native() is not None
 
 
 def _morton_order(centroids: np.ndarray) -> np.ndarray:

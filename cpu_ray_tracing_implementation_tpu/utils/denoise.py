@@ -6,8 +6,8 @@ edge-stopping functions [Dammertz et al. 2010, "Edge-Avoiding À-Trous
 Wavelet Transform for fast Global Illumination Filtering"] — the same
 filter family SVGF-style real-time denoisers build on.
 
-TPU shape: each iteration is 25 statically-unrolled edge-clamped shifts of
-the whole [H,W,3] image (pure elementwise VPU work, XLA fuses the weight
+Shape: each iteration is 25 statically-unrolled edge-clamped shifts of
+the whole [H,W,3] image (pure elementwise work, XLA fuses the weight
 products); no gathers, no data-dependent shapes.
 
 Guidance comes from models/aov.py buffers:

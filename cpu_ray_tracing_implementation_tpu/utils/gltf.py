@@ -1,6 +1,6 @@
 """Host-side glTF 2.0 asset ingestion.
 
-TPU-native replacement for the reference's hand-rolled C++ loader
+Python replacement for the reference's hand-rolled C++ loader
 (reference: src/gltf_loader.h:256-812): scene assembly is host-side Python
 (stdlib ``json`` + NumPy buffer walks) producing flat triangle arrays that
 feed the SceneBuilder tables; nothing here runs on device.

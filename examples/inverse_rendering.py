@@ -4,7 +4,7 @@ Renders a lambertian sphere with the true albedo as the optimization
 target, restarts from grey, and gradient-descends back (models/diff.py
 detached-sampling estimator — a capability the CUDA/C++ reference has no
 analogue for). Converges to ~0.05 absolute albedo error in under a
-minute on CPU, seconds on a TPU chip.
+minute on CPU, seconds on a GPU.
 
     python examples/inverse_rendering.py [--steps 80] [--spp 4]
 

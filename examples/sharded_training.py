@@ -6,7 +6,7 @@ shard renders + backprops its pixel block, and parameter gradients are
 psum-all-reduced — the standard DP recipe, with radiance streams that are
 bitwise identical at any device count (per-pixel counter-based RNG).
 
-Run on any host with 8 virtual CPU devices (no TPU pod required):
+Run on any host with 8 virtual CPU devices (no multi-GPU host required):
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/sharded_training.py
@@ -22,8 +22,8 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 # The demo is about the mesh, so default to 8 virtual CPU devices; set
-# CRT_EXAMPLE_DEVICES=native to use whatever backend JAX picks (e.g. a
-# real TPU pod slice).
+# CRT_EXAMPLE_DEVICES=native to use whatever backend JAX picks (e.g. the
+# GPUs of one host).
 if os.environ.get("CRT_EXAMPLE_DEVICES") != "native":
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_num_cpu_devices", 8)

@@ -1,6 +1,6 @@
 // Native scene-acceleration builder.
 //
-// The TPU-side intersector consumes primitives in a spatially coherent order
+// The device-side intersector consumes primitives in a spatially coherent order
 // (chunk-of-primitives scan with per-chunk AABB culling, ops/chunked.py), and
 // future kernels consume the flattened BVH nodes directly. This library does
 // the host-side heavy lifting the reference does in C++ too (its recursive

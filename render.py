@@ -73,11 +73,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "per-path radiance bitwise-equal to the classic "
                         "scan, image allclose). Default 'auto' uses it for "
                         "chunked/accelerated scenes with an auto-sized "
-                        "lane pool (measured v5e round 5: colonnade full "
-                        "workload 2.85 s vs 4.9 s at one-lane-per-pixel "
-                        "and ~9 s on the scan); dense scenes keep the "
-                        "unrolled scan, which is 5x faster there — refill "
-                        "bookkeeping swamps the cheap dense intersect)")
+                        "lane pool; dense scenes keep the unrolled scan, "
+                        "where refill bookkeeping would swamp the cheap "
+                        "dense intersect)")
     p.add_argument("--clamp", type=float, default=None, metavar="C",
                    help="firefly clamp: per-sample radiance min'd against C "
                         "per channel (variance/bias trade; off by default)")
@@ -111,12 +109,11 @@ CONFIG_KEYS = ("scene", "output", "width", "spp", "max_depth", "seed",
 
 def use_wavefront(mode: str, scene) -> bool:
     """Forward-render integrator routing. 'auto' (the default) picks the
-    path-regeneration wavefront for chunked/accelerated scenes — measured
-    on one v5e chip (2026-08-20): colonnade 1.29x, sphereflake 1.46x
-    faster at identical images — and the unrolled classic scan for dense
-    tables, where the wavefront is 5x SLOWER (Cornell 512px d8: 1.83 s vs
-    0.34 s; refill bookkeeping + an un-unrollable while_loop swamp the
-    cheap [R,18] intersect). Numbers: BASELINE.md round-4 section."""
+    path-regeneration wavefront for chunked/accelerated scenes and the
+    unrolled classic scan for dense tables, where refill bookkeeping and an
+    un-unrollable while_loop swamp the cheap [R,18] intersect. The rule was
+    set by measurements on the previous accelerator; its re-check on the
+    card is ROADMAP A4."""
     if mode == "on" or mode is True:    # bool: pre-round-4 JSON configs
         return True
     if mode == "off" or mode is False:
@@ -188,7 +185,9 @@ def main(argv=None) -> int:
     import jax
 
     from cpu_ray_tracing_implementation_tpu.models import catalog, film, integrator
+    from cpu_ray_tracing_implementation_tpu.utils import compile_cache
 
+    compile_cache.enable()
     names = list(catalog.SCENES)
 
     if args.list:

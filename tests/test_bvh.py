@@ -1,7 +1,7 @@
 """Device-side threaded-BVH traversal (ops/bvh.py) vs the chunk-scan oracle.
 
 The traversal must agree with ops.chunked (same primitives, same DFS
-primitive order, same strict-< tie-breaks) — the TPU counterpart of checking
+primitive order, same strict-< tie-breaks) — the device-side counterpart of checking
 the reference's bvh_node::hit against its linear hittable_list scan.
 """
 

@@ -1,6 +1,6 @@
 """Chunk-scan intersection (ops/chunked.py) vs the dense oracle.
 
-The chunked path is the TPU counterpart of BVH traversal (reference
+The chunked path is the vectorised counterpart of BVH traversal (reference
 src/bvh_node.h): BVH-ordered fixed chunks + whole-batch AABB culls + per-ray
 closest-t tightening. Must agree with the dense single-pass intersection.
 """

@@ -92,7 +92,7 @@ def test_sphere_perray_matches_chunked(sphere_scene, V, monkeypatch):
     np.testing.assert_array_equal(hit_c, hit_r)
     assert hit_c.sum() > 50
     # the per-ray quadratic uses the direct (org - center) form, the chunk
-    # scan the MXU-expanded form — equal up to f32 rounding
+    # scan the matmul-expanded form — equal up to f32 rounding
     np.testing.assert_allclose(np.asarray(t_r)[hit_r], np.asarray(t_c)[hit_c],
                                rtol=5e-4)
     np.testing.assert_array_equal(np.asarray(m_r)[hit_r],

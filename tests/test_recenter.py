@@ -1,6 +1,6 @@
 """Build-time recentering for far-from-origin scenes (Scene.world_offset).
 
-The MXU-expanded sphere quadratic (|o|^2 - 2 o.c + |c|^2 - r^2,
+The matmul-expanded sphere quadratic (|o|^2 - 2 o.c + |c|^2 - r^2,
 ops/intersect.py sphere_ts) cancels catastrophically in f32 once scene
 coordinates pass ~1e3 with unit-scale features. SceneBuilder folds the
 centroid out of the geometry above RECENTER_THRESHOLD; a translated copy of

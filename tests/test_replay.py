@@ -60,7 +60,7 @@ def test_replay_hit_matches_brute(name, mk):
                                   np.asarray(hb.mat)[v])
     np.testing.assert_array_equal(np.asarray(hr.front)[v],
                                   np.asarray(hb.front)[v])
-    # t agrees to ~1e-4 relative (the dense MXU expansion of |o-c|^2
+    # t agrees to ~1e-4 relative (the dense matmul expansion of |o-c|^2
     # cancels in f32; replay's direct form is the tighter one). Derived
     # attrs amplify that by |dir|/radius — e.g. normal err ~ t_err*|d|/0.2
     # on the motion-ball's small spheres — hence the looser bounds below.

@@ -68,7 +68,7 @@ def _grad_compare(g_acc, g_ref, names, active=None, rtol=2e-3, atol=1e-4,
     ``outlier_frac``/``outlier_rtol``: the winner DECISIONS are identical
     (forward parity tests pin accel == chunk scan exactly), but the replay
     re-derives t from the direct |o-c|^2 quadratic while the scan uses the
-    MXU expansion — algebraically equal, and dt/d(inputs) carries a
+    matmul expansion — algebraically equal, and dt/d(inputs) carries a
     1/sqrt(disc) factor that amplifies their f32 difference without bound
     at grazing incidence. A small fraction of lanes (~1% on these random
     scenes) may therefore differ by a few percent; every element must
